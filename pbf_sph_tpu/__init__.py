@@ -1,15 +1,14 @@
-"""pbf-sph-tpu: a TPU-native Position-Based-Fluids SPH engine.
+"""pbf-sph-tpu: a Position-Based-Fluids SPH engine in JAX.
 
 A ground-up re-design of the capabilities of UoB-HPC/pbf-sph (a C++/OpenMP/
-OpenCL/SYCL PBF mini-app) for TPU hardware: the whole simulation step is one
-jitted XLA program with static shapes, the hot constraint-solve kernels are
-Pallas TPU kernels over Morton-sorted cell buckets, and multi-chip scaling is
-spatial domain decomposition over a `jax.sharding.Mesh` with halo exchange.
+OpenCL/SYCL PBF mini-app): the whole simulation step is one jitted XLA
+program with static shapes over cell-sorted particles, and multi-device
+scaling is spatial domain decomposition over a `jax.sharding.Mesh` with halo
+exchange.
 
 Backends (mirroring the reference's solver multiplexing, reference
 `src/benchmark.cpp:105-172`):
-  * ``jax``    — pure XLA, any scale, the portable path
-  * ``pallas`` — Pallas TPU kernels for the hot phases
+  * ``jax``    — the XLA engine (runs on the GPU, or the CPU for tests)
   * ``cpp``    — C++/OpenMP oracle (the fidelity anchor, equivalent of the
                  reference's `src/omp/ompsph.hpp` backend)
   * ``numpy``  — pure NumPy oracle for CI without a compiler

@@ -1,9 +1,8 @@
 """Benchmark workload presets.
 
 `bench20k` is the reference's fixed benchmark workload
-(reference `src/benchmark.cpp:23-29`).  The dam-break family implements the
-BASELINE.json configs: ~32k parity run, 256k solver-only, 128k + MC export,
-1M north-star, 2M stress.
+(reference `src/benchmark.cpp:23-29`).  The dam-break family: ~32k parity
+run, 256k solver-only, 128k/512k + MC export, 1M solver-only, 2M stress.
 """
 
 from __future__ import annotations
@@ -78,7 +77,7 @@ WORKLOADS = {
     # the reference benchmark workload (src/benchmark.cpp:23-29)
     "bench20k": lambda: _with_surface(simple_config_with_2_cubes(20_000, 6, 500.0)),
     "bench20k-nosurf": lambda: simple_config_with_2_cubes(20_000, 6, 500.0),
-    # BASELINE.json configs
+    # dam-break family
     "parity32k": lambda: dam_break(32_000, solver_iter=3),
     "dam256k": lambda: dam_break(256_000, solver_iter=5),
     "mc128k": lambda: dam_break(128_000, solver_iter=3, surface=True),

@@ -1,6 +1,6 @@
 """Core domain model: particles, scenes, parameters, results.
 
-This is the TPU-native re-expression of the reference's domain model
+This is the jit-friendly re-expression of the reference's domain model
 (reference `src/sph.hpp:25-125`).  The key departure from the reference is the
 state layout: instead of an AoS ``std::vector<Particle>`` that grows/shrinks
 (reference `src/omp/ompsph.hpp:94-118`), particle state is a fixed-capacity
@@ -188,10 +188,10 @@ class ParticleSoA:
 class FluidState:
     """Device-side fixed-capacity particle state pytree.
 
-    TPU layout note: vector quantities are **component-major** — position and
-    velocity are (3, C), colour is (4, C) — so the long particle axis maps to
-    TPU lanes.  A (C, 3) layout would be padded 3→128 on the lane axis by the
-    TPU tiler (a 42x memory blowup measured on real hardware).
+    Layout note: vector quantities are **component-major** — position and
+    velocity are (3, C), colour is (4, C) — so the long particle axis is the
+    contiguous one and each component is a dense (C,) row that the phases
+    read and write whole.
 
     Dead slots have ``alive == False`` and are parked at the end of the
     Morton sort order.

@@ -9,7 +9,7 @@ from __future__ import annotations
 
 from typing import Any
 
-BACKENDS = ("jax", "pallas", "cpp", "numpy")
+BACKENDS = ("jax", "cpp", "numpy")
 
 
 def make_solver(impl: str, h: float = 0.1, **kwargs: Any):
@@ -27,8 +27,4 @@ def make_solver(impl: str, h: float = 0.1, **kwargs: Any):
         from pbf_sph_tpu.models.jax_solver import JaxSolver
 
         return JaxSolver(h=h, **kwargs)
-    if impl == "pallas":
-        from pbf_sph_tpu.models.jax_solver import JaxSolver
-
-        return JaxSolver(h=h, use_pallas=True, **kwargs)
     raise ValueError(f"unknown impl {impl!r}; available: {BACKENDS}")

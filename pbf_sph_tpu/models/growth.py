@@ -1,26 +1,26 @@
-"""Shared capacity-growth / kernel-fallback policy.
+"""Shared capacity-growth policy.
 
 One frame's outputs report every static capacity the compiled step depends
-on (cell occupancy, triangle count, Pallas strip / candidate-slab columns,
-MC node-kernel strip columns, query-cell population).  When any of them
+on (cell occupancy, triangle count, MC emission rows, query-cell
+population).  When any of them
 overflows, the frame's physics is suspect (candidates/triangles/ids were
 dropped) and the step must be rebuilt under a larger spec and re-run.
 
 This module is the single decision procedure for that growth — consumed by
 `JaxSolver.advance` (re-run the same frame under the grown spec) and by
-`bench.py` (restart warmup from a fresh state under the grown spec).  It
-used to live as two hand-kept copies (round-2 VERDICT weak #9).
+`settle` (the device-resident warmup of `bench.py` and `chip_smoke.py`:
+restart from a fresh state under the grown spec).
 
 The policy mirrors the reference's unbounded behavior up to
 capacity-with-growth: the reference uses std::vector everywhere
-(`/root/reference/src/omp/ompsph.hpp:167-186` queries,
-`/root/reference/src/ocl/oclsph.cpp:192-211` triangle buffers), which has no
-TPU equivalent under static shapes.
+(`src/omp/ompsph.hpp:167-186` queries, `src/ocl/oclsph.cpp:192-211`
+triangle buffers), which has no equivalent under static shapes.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import sys
 from typing import Any, Dict
 
 import numpy as np
@@ -76,30 +76,8 @@ def growth_changes(spec, out) -> Dict[str, Any]:
             else:
                 changes["surface"] = dataclasses.replace(sur, emit_cap=new_cap)
 
-        # MC node-kernel strips: grow to the VMEM-safe MC cap; only a
-        # persistent overflow falls back to the XLA field (which is ~12x
-        # slower at res 1.0 — 913M gathered elements).  Kept separate from
-        # the phase-kernel strip_capacity (ADVICE r2 medium #2).
-        mco = int(out.get("mc_strip_overflow", 0))
-        if mco > 0 and spec.mc_pallas:
-            from pbf_sph_tpu.ops.pallas_mc import MC_SMAX_CAP
-
-            base = spec.mc_strip_capacity or max(spec.strip_capacity, 8192)
-            cand = -(-(max(base, 8192) + mco) // 2048) * 2048
-            if cand <= MC_SMAX_CAP:
-                changes["mc_strip_capacity"] = cand
-            else:
-                changes["mc_pallas"] = False
-
-    # phase-kernel strip columns -> strip_capacity
-    strip_ovf = int(out.get("strip_overflow", 0))
-    if strip_ovf > 0:
-        from pbf_sph_tpu.ops.pallas_pbf import grown_strip_capacity
-
-        changes["strip_capacity"] = grown_strip_capacity(spec, strip_ovf)
-
     # query-cell population -> scene.query_capacity (reference semantics are
-    # unbounded; round-2 missing #1)
+    # unbounded)
     q_ovf = int(out.get("query_overflow", 0))
     if q_ovf > 0:
         sc = spec.scene
@@ -107,3 +85,35 @@ def growth_changes(spec, out) -> Dict[str, Any]:
         changes["scene"] = dataclasses.replace(sc, query_capacity=new_q)
 
     return changes
+
+
+def settle(solver, spec, state, dyn, scn, xs, warmup: int, rounds: int = 6):
+    """Compile and run `warmup` device-resident frames, growing the spec
+    until one whole round holds every capacity; returns (spec, state).
+
+    A capacity overflow means dropped candidates, i.e. corrupted physics, so
+    after any growth the round restarts from a FRESH state built from `xs`:
+    frames computed with dropped pairs collapse the state and inflate every
+    later capacity estimate.  The round is judged on its peak occupancy, not
+    just the last frame's."""
+    import jax
+
+    from pbf_sph_tpu.core.types import FluidState
+
+    for _ in range(rounds):
+        occs = []
+        for _ in range(warmup):
+            state, out = solver.step_device(spec, state, dyn, scn)
+            occs.append(out["max_occupancy"])
+        out = dict(out)
+        out["max_occupancy"] = max(int(o) for o in occs)
+        changes = growth_changes(spec, out)
+        if not changes:
+            return spec, state
+        print(f"# growing: {changes}", file=sys.stderr)
+        spec = dataclasses.replace(spec, **changes)
+        state = jax.device_put(
+            FluidState.from_soa(xs, spec.capacity, solver.dtype))
+    # mirrors JaxSolver.advance's convergence error: measuring frames
+    # computed with dropped candidates would be benchmarking corrupted physics
+    raise RuntimeError(f"capacity growth did not converge: {changes}")

@@ -2,7 +2,7 @@
 
 A from-scratch, vectorized re-expression of the reference pipeline
 (one frame = reference `omp_impl::Solver::advance`, `src/omp/ompsph.hpp:85-485`)
-used as a fidelity oracle for the TPU backends on machines without the C++
+used as a fidelity oracle for the JAX backend on machines without the C++
 extension.  All arithmetic is fp32 by default, matching the reference's
 `Solver<size_t, float>` benchmark configuration (`src/benchmark.cpp:163`).
 
@@ -109,6 +109,77 @@ class NumpySolver(Solver):
 
     # -- the frame ----------------------------------------------------------
 
+    def _advect_and_grid(self, config, scene, xs) -> dict:
+        """Steps 3-6 of a frame: advect, cell assignment, stable sort, dense
+        grid table.  Arrays are in sorted order except `order` itself."""
+        f = self.dtype
+        h = f(self.h)
+        dt = f(config.dt)
+        scale = f(config.scale)
+        min_bound = np.asarray(config.min_bound, f)
+        max_bound = np.asarray(config.max_bound, f)
+        const_force = np.asarray(config.constant_force, f)
+        fl3 = (xs.ptype == FLUID)[:, None]
+
+        # 3. advect + external forces (reference `src/omp/ompsph.hpp:130-155`)
+        padding = h * f(2)
+        min_extent = min_bound / scale - padding
+        max_extent = max_bound / scale + padding
+        extent = np.trunc((max_extent - min_extent) / h).astype(np.int64)
+        maxz = int(morton_encode3(int(extent[0]), int(extent[1]), int(extent[2])))
+
+        force = xs.mass[:, None] * const_force
+        for w in scene.wells:
+            centre = np.asarray(w.centre, f)
+            diff = centre - xs.position
+            dist = np.linalg.norm(diff, axis=1)
+            near = dist < f(75)
+            dist_safe = np.where(dist > 0, dist, 1).astype(f)
+            rhat = diff / dist_safe[:, None]
+            fw = np.clip(rhat * f(w.force) * xs.mass[:, None] / (dist_safe**2)[:, None], f(-10), f(10))
+            force = force + np.where(near[:, None], fw, f(0))
+
+        vel = np.where(fl3, xs.velocity + force * dt, xs.velocity)
+        pstar = np.where(fl3, vel * dt + xs.position / scale, xs.position / scale)
+
+        # 4. cell assignment + 5. sort (reference `src/omp/ompsph.hpp:152-158`)
+        cells = self._cells_of(pstar, min_extent)
+        codes = self._codes_of(cells)
+        key = np.where(codes < maxz, codes, BIG)
+        order = np.argsort(key, kind="stable")
+        key = key[order]
+
+        # 6. dense grid table (reference `makeGridTable`, `src/sph.hpp:238-250`):
+        # gridTable[z] = first sorted index with code >= z == searchsorted-left.
+        grid_table = np.searchsorted(key, np.arange(maxz + 1, dtype=np.int64), side="left")
+        return dict(order=order, vel=vel[order], pstar=pstar[order],
+                    cells=cells[order], codes=codes[order],
+                    grid_table=grid_table, maxz=maxz,
+                    min_extent=min_extent, extent=extent)
+
+    def surface_of(self, config: SphParams, xs_in: ParticleSoA,
+                   xs_out: ParticleSoA) -> ColouredMesh:
+        """The oracle's marching cubes of a frame's output particles
+        `xs_out`, over the cell table that frame built from its input
+        `xs_in` (no scene objects; ids unique).  This checks an engine's
+        surface stage alone where its solver stage has drifted from the
+        oracle's: in a strongly compressed start (bench20k) fp32 summation
+        order moves particles apart within one frame."""
+        if len(xs_out) != len(xs_in):
+            raise ValueError("xs_out does not hold the particles of xs_in")
+        g = self._advect_and_grid(config, Scene(), xs_in)
+        sorted_pid = xs_in.pid[g["order"]]
+        by_id = np.argsort(xs_out.pid, kind="stable")
+        at = np.searchsorted(xs_out.pid[by_id], sorted_pid)
+        rows = by_id[np.minimum(at, len(by_id) - 1)]
+        if not np.array_equal(xs_out.pid[rows], sorted_pid):
+            raise ValueError("xs_out does not hold the particles of xs_in")
+        return self._marching_cubes(
+            config, xs_out.position[rows], xs_out.colour[rows],
+            xs_out.ptype[rows], g["grid_table"], g["maxz"],
+            g["min_extent"], g["extent"],
+        )
+
     def advance(self, config: SphParams, scene: Scene, xs: ParticleSoA):
         # per-phase Stopwatch (reference OMP prints one per frame,
         # src/omp/ompsph.hpp:89-482); cli --phase-timings prints it
@@ -123,7 +194,6 @@ class NumpySolver(Solver):
         scale = f(config.scale)
         min_bound = np.asarray(config.min_bound, f)
         max_bound = np.asarray(config.max_bound, f)
-        const_force = np.asarray(config.constant_force, f)
 
         xs = xs.copy()
 
@@ -171,58 +241,21 @@ class NumpySolver(Solver):
             return Result(), xs
 
         n = len(xs)
-        fluid = xs.ptype == FLUID
-        fl3 = fluid[:, None]
 
         _stop()
-        _stop = watch.start("advect")
-        # 3. advect + external forces (reference `src/omp/ompsph.hpp:130-155`)
-        padding = h * f(2)
-        min_extent = min_bound / scale - padding
-        max_extent = max_bound / scale + padding
-        extent = np.trunc((max_extent - min_extent) / h).astype(np.int64)
-        maxz = int(morton_encode3(int(extent[0]), int(extent[1]), int(extent[2])))
-
-        force = xs.mass[:, None] * const_force
-        for w in scene.wells:
-            centre = np.asarray(w.centre, f)
-            diff = centre - xs.position
-            dist = np.linalg.norm(diff, axis=1)
-            near = dist < f(75)
-            dist_safe = np.where(dist > 0, dist, 1).astype(f)
-            rhat = diff / dist_safe[:, None]
-            fw = np.clip(rhat * f(w.force) * xs.mass[:, None] / (dist_safe**2)[:, None], f(-10), f(10))
-            force = force + np.where(near[:, None], fw, f(0))
-
-        vel = np.where(fl3, xs.velocity + force * dt, xs.velocity)
-        pstar = np.where(fl3, vel * dt + xs.position / scale, xs.position / scale)
-
-        _stop()
-        _stop = watch.start("sortz")
-        # 4. cell assignment + 5. sort (reference `src/omp/ompsph.hpp:152-158`)
-        cells = self._cells_of(pstar, min_extent)
-        codes = self._codes_of(cells)
-        key = np.where(codes < maxz, codes, BIG)
-        order = np.argsort(key, kind="stable")
-
+        _stop = watch.start("advect+sortz+gridtable")
+        g = self._advect_and_grid(config, scene, xs)
+        order, vel, pstar, cells, codes = (
+            g["order"], g["vel"], g["pstar"], g["cells"], g["codes"])
+        grid_table, maxz = g["grid_table"], g["maxz"]
+        min_extent, extent = g["min_extent"], g["extent"]
         pid = xs.pid[order]
         ptype = xs.ptype[order]
         mass = xs.mass[order]
         position = xs.position[order]
         colour = xs.colour[order].copy()
-        vel = vel[order]
-        pstar = pstar[order]
-        cells = cells[order]
-        codes = codes[order]
-        key = key[order]
         fluid = ptype == FLUID
         fl3 = fluid[:, None]
-
-        _stop()
-        _stop = watch.start("gridtable")
-        # 6. dense grid table (reference `makeGridTable`, `src/sph.hpp:238-250`):
-        # gridTable[z] = first sorted index with code >= z == searchsorted-left.
-        grid_table = np.searchsorted(key, np.arange(maxz + 1, dtype=np.int64), side="left")
 
         _stop()
         _stop = watch.start("queries")

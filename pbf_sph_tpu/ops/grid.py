@@ -1,15 +1,14 @@
 """On-device spatial index: cell sort + dense CSR cell table.
 
-TPU-native replacement for the reference's host-side sort + grid-table build
+Device-side replacement for the reference's host-side sort + grid-table build
 (host std::sort `src/omp/ompsph.hpp:158`, makeGridTable `src/sph.hpp:238-250`):
 everything stays on device inside the jitted step.
 
-Design choice (TPU-specific): particles are sorted by **row-major linear cell
-id** (x*NY*NZ + y*NZ + z, z fastest), not by Morton code.  Linear order makes
+Design choice: particles are sorted by **row-major linear cell id**
+(x*NY*NZ + y*NZ + z, z fastest), not by Morton code.  Linear order makes
 every (dx,dy) slice of the 27-cell stencil one *contiguous* range of the
-sorted particle array — which is what lets the Pallas kernels replace
-arbitrary gathers (catastrophically slow on TPU, ~7ns/element measured) with
-contiguous-segment DMA.  The reference's Morton order only affects iteration
+sorted particle array, so a neighbour sweep reads contiguous runs.  The
+reference's Morton order only affects iteration
 order (fp-summation order) and the writeback permutation, not membership.
 
 Membership/skip semantics still mirror the reference exactly via Morton-code
@@ -25,7 +24,7 @@ particles whose pStar overshoots the padded domain before the bounds clamp)
 are treated as invalid here; see SURVEY.md §7 fidelity notes.
 
 The dense table is built with scatter-add + cumsum (O(n + ncells) dense ops)
-instead of searchsorted (binary search = 20+ rounds of slow TPU gathers).
+instead of searchsorted (a binary search of 20+ dependent gather rounds).
 """
 
 from __future__ import annotations

@@ -1,6 +1,6 @@
 """Marching cubes — XLA path.
 
-TPU re-design of the reference's three MC kernels
+Re-design of the reference's three MC kernels
 (mc_lattice `src/ocl/oclsph_kernel.h:176-263`, mc_size `:272-318`,
 mc_eval `:336-408`): the lattice field is a dense gather over the particle
 grid, the triangle count is an exclusive cumsum (replacing the workgroup tree
@@ -10,7 +10,7 @@ atomics-free, static shapes).
 
 Layout: everything is component-major / leading-small-axis — lattice normals
 (3, L), colours (4, L), corner values (8, M), edge lerps (12, M), output mesh
-(3, 3T)/(4, 3T) — so the long axis always sits on TPU lanes.
+(3, 3T)/(4, 3T) — so the long axis is always the contiguous one.
 """
 
 from __future__ import annotations
@@ -28,23 +28,18 @@ from pbf_sph_tpu.ops.curves import morton_encode3
 
 
 # initial staged-rows-per-block capacity for blocked emission (grown on
-# emit_overflow, models/growth.py).  NOTE (round-4 measurement,
-# tools/micro_extract.py logs in BENCHMARKS.md): the blocked two-stage sort
-# is a wash at mc128k (18.1 vs 20.3 ms) and a small REGRESSION at mc512k
-# (97.7 vs 92.8 ms) — stage 1 still sorts all 15*M rows, just block-batched,
-# and batched minor-dim sorts don't get cheaper.  Production therefore keeps
-# emit_block=0; the at-scale extraction lever is cube compaction BEFORE
-# emission (mc_extract docstring).
+# emit_overflow, models/growth.py).  Stage 1 of the blocked two-stage sort
+# still sorts all 15*M rows, just block-batched, so it does not cut the
+# work; the default path keeps emit_block=0 and compacts cubes BEFORE
+# emission instead (mc_extract docstring).
 EMIT_CAP_DEFAULT = 1280
 
-# cube-compaction defaults (round-4 measurement, tools/micro_extract.py on
-# the real chip — BENCHMARKS.md "MC extraction cost model"): at mc512k the
-# compacted path is 18.0 ms vs 91.6 ms for the global sort (bit-identical
-# output), and its cost is insensitive to the cap (19.0 ms at 2x live cubes,
-# 25.1 ms at 4x).  An eighth of the march volume covers live-cube fractions
-# up to 12.5% (measured: 4.5% at mc512k) before the growth policy has to
-# step in.  Below the volume threshold the lattice is small enough that the
-# global sort is already cheap and not worth a growth-retry loop.
+# cube-compaction defaults: the compacted path's output is bit-identical to
+# the global sort's.  An eighth of the march volume covers live-cube
+# fractions up to 12.5% (the mc512k dam break has ~4.5% live cubes) before
+# the growth policy has to step in.  Below the volume threshold the lattice
+# is small enough that the global sort is already cheap and not worth a
+# growth-retry loop.
 CUBE_COMPACT_MIN_VOL = 32768
 
 
@@ -63,33 +58,27 @@ class McSpec:
     resolution: float
     sample: Tuple[int, int, int]
     tri_capacity: int
-    # particleInfluence is jit-dynamic on the XLA path; the Pallas field
-    # kernel bakes it (len^infl needs a transcendental for arbitrary
-    # exponents; 0.5 compiles to sqrt) — changing it recompiles.
-    influence_static: float = 0.5
-    # Blocked two-stage emission (round 3): compact each `emit_block`-cube
+    # Blocked two-stage emission: compact each `emit_block`-cube
     # block's live vertex slots to the front with one row-sort over
     # (nblk, 15*B) blocks, keep the first `emit_cap` staged rows per block
     # (128-aligned; grown on emit_overflow), then merge with a short global
     # sort over nblk*emit_cap rows instead of 15*M.  emit_block=0 keeps the
-    # single global sort (correct at any size, slower at scale — it sorts
-    # ~90% padding, BENCHMARKS.md "MC extraction cost model").
+    # single global sort (correct at any size, slower at scale — most of
+    # the 15*M vertex slots it sorts are padding).
     emit_block: int = 0
     emit_cap: int = 0
-    # Cube-compaction emission (round 4): one sort of the M per-cube rows by
+    # Cube-compaction emission: one sort of the M per-cube rows by
     # (live ? idx : BIG+idx) — unique keys, deterministic — carrying the 65
     # per-cube corner operands, sliced to the first `cube_cap` columns; the
     # slot emission sort then runs over 15*cube_cap rows instead of 15*M.
-    # lax.sort on TPU is superlinear in row count (BENCHMARKS.md "MC
-    # extraction cost model"), so cutting rows 15x (stage 1) and ~5-10x
-    # (stage 2) is the at-scale lever the blocked two-stage sort was not.
+    # Cutting rows 15x (stage 1) and ~5-10x (stage 2) is the at-scale lever
+    # the blocked two-stage sort was not.
     # cube_cap=0 keeps the single global sort; overflow (more live cubes
     # than cube_cap) reports via emit_overflow (mesh INVALID — grow).
     cube_cap: int = 0
 
     @staticmethod
     def from_extent(extent, resolution: float, tri_capacity: int = 0,
-                    influence_static: float = 0.5,
                     cube_cap: int = -1) -> "McSpec":
         f = np.float32
         sample = (np.floor(np.asarray(extent, f) * f(resolution)) + 1).astype(np.int64)
@@ -103,7 +92,6 @@ class McSpec:
             resolution=float(resolution),
             sample=tuple(int(v) for v in sample),
             tri_capacity=int(tri_capacity),
-            influence_static=float(influence_static),
             cube_cap=int(cube_cap),
         )
 
@@ -218,8 +206,7 @@ def mc_field(position, colour, ptype, alive, cell_table, grid, min_extent,
                 dist = jnp.sqrt(d2)
                 # zero-distance particles are skipped (the reference divides by
                 # zero and yields inf, `src/omp/ompsph.hpp:340-341`; a
-                # measure-zero event we replace with the sane convention,
-                # identical across the XLA and Pallas paths)
+                # measure-zero event we replace with the sane convention)
                 use = mask & (ptype[idx] != OBSTACLE) & (dist < threshold)
                 denom = dist**particle_influence
                 use = use & (denom > 0)
@@ -248,8 +235,7 @@ def _corner_slices(lat, sample):
 
     The corner index sets are axis-shifted copies of the march grid, so
     slicing replaces the reference's per-corner indexed loads (`mc_size`
-    corner gathers `src/ocl/oclsph_kernel.h:277-292`) — XLA integer gathers
-    run at ~7ns/element on TPU; static slices are plain copies."""
+    corner gathers `src/ocl/oclsph_kernel.h:277-292`) with plain copies."""
     nx, ny, nz = sample
     mx, my, mz = nx - 1, ny - 1, nz - 1
     lead = lat.shape[:-1]
@@ -376,13 +362,12 @@ def mc_extract(lat_v, lat_n, lat_c, min_extent, extent, spec: McSpec,
     corner falls outside the global march volume (last-slab padding) emit
     nothing.
 
-    TPU structure: corner values come from shifted 3D slices (no gathers);
+    Structure: corner values come from shifted 3D slices (no gathers);
     per-vertex edge attributes are selected with an unrolled one-hot reduce
     over the 12 edges; emission sorts vertex slots by destination (invalid
     slots carry a past-the-end key), which packs the output exactly.
-    Emission by SORT compaction (round 3): the earlier 15 column-scatters
-    into (10, cap3) serialized on TPU (~hundreds of ms at 97k cubes —
-    minor-axis scatter is pathological).  Destination slots are unique and
+    Emission by SORT compaction instead of 15 column-scatters into
+    (10, cap3).  Destination slots are unique and
     dense (0..3T-1 from the cumsum), so sorting by destination packs the
     output; the `big` tail is re-zeroed.  With `spec.emit_block` set the
     sort is two-stage (blocked compaction then a short merge sort — see the

@@ -5,13 +5,12 @@ Each phase mirrors one reference kernel over the 27-cell Morton stencil
 delta `:125-162`, finalise `:164-174`; host phases: sources/drains/advect
 `src/omp/ompsph.hpp:93-155`).
 
-TPU re-design: neighbour iteration is a statically unrolled loop over the 27
+Design: neighbour iteration is a statically unrolled loop over the 27
 stencil offsets; each offset contributes a dense (K, C) gather of cell
-candidates (K = static per-cell capacity, C = particle capacity on the lane
-axis) that XLA fuses into the pairwise math and a masked reduction over K.
-All vector quantities are component tuples of (C,)/(K,C) arrays — never
-(..., 3)-trailing shapes, which the TPU tiler pads to 128 lanes.
-No atomics, no host round-trips, static shapes.
+candidates (K = static per-cell capacity, C = particle capacity) that XLA
+fuses into the pairwise math and a masked reduction over K.  All vector
+quantities are component tuples of (C,)/(K,C) arrays, never (..., 3)-trailing
+shapes.  No atomics, no host round-trips, static shapes.
 """
 
 from __future__ import annotations

@@ -7,8 +7,7 @@ slab; each step
 
   1. advects locally,
   2. migrates particles whose new cell crossed a slab boundary to the
-     neighbouring device (fixed-capacity send buffers over `ppermute` — the
-     ICI neighbour-exchange pattern),
+     neighbouring device (fixed-capacity send buffers over `ppermute`),
   3. exchanges one-cell-deep ghost layers with both neighbours,
   4. runs the PBF constraint solve locally, re-exchanging the ghost layer's
      lambda and pStar every solver iteration, so owned particles see exactly
@@ -24,8 +23,7 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from functools import partial
-from typing import Any, Dict, Tuple
+from typing import Any, Dict
 
 import numpy as np
 import jax
@@ -38,12 +36,11 @@ from pbf_sph_tpu.models.jax_solver import (
     StepSpec,
     _apply_drains,
     _apply_sources,
-    make_phase_objects,
     neighbour_phases,
     scene_spec_of,
 )
 from pbf_sph_tpu.ops import pbf
-from pbf_sph_tpu.ops.grid import GridSpec, build_cell_table, decode_key, stencil_ranges
+from pbf_sph_tpu.ops.grid import GridSpec, build_cell_table
 
 AXIS = "x"
 
@@ -62,19 +59,15 @@ class ShardSpec:
     cell_capacity: int
     dtype: str = "float32"
     scene: SceneSpec = SceneSpec()
-    # run the Pallas strip-window phase pipeline in the local step;
-    # False = the XLA gather phases.
-    use_pallas: bool = False
-    strip_capacity: int = 0
     # initial-bounds min x (world space); used only by distribute_particles
     min_bound_x: float = 0.0
     # LOCAL marching-cubes spec (slab_w*res+1 node columns); None = no surface
     surface: object = None
     # Dynamic slab rebalancing (SURVEY hard part #4): slab boundaries are a
     # (n_dev+1,) x-column array re-partitioned from the global particle
-    # x-CDF every frame, instead of fixed slab_w-wide slabs (which measured a
-    # 0.682 peak-slab fraction — 5.46x uniform — under the sloshing
-    # benchmark motion, tools/load_balance.py).  Boundary movement is
+    # x-CDF every frame, instead of fixed slab_w-wide slabs (under the
+    # sloshing benchmark motion one fixed slab holds most of the fluid).
+    # Boundary movement is
     # clamped to rebalance_step columns/frame and slabs keep >= min_slab_w
     # columns, which preserves the one-slab-hop migration invariant.
     # Incompatible with `surface` (the slab-local MC node partition is
@@ -155,7 +148,6 @@ class ShardSpec:
     def create(config, n_dev: int, count: int, h: float,
                cell_capacity: int = 48, dtype: str = "float32",
                cap_local: int = 0, scene: Scene = None,
-               use_pallas: bool = False,
                rebalance: bool = False, ghost_cap: int = 0,
                min_slab_w: int = 3) -> "ShardSpec":
         grid = GridSpec.from_bounds(config.min_bound, config.max_bound, config.scale, h)
@@ -185,12 +177,10 @@ class ShardSpec:
             per = (count + sspec.total_spawn) / n_dev
             cap_local = max(256, -(-int(per * 2.5) // 128) * 128)
         if cap_local <= 0:
-            # fixed slabs: whole-set default, data-justified
-            # (tools/load_balance.py, 200 frames of the sloshing benchmark at
-            # 256k/8 slabs): the peak slab holds 68% of ALL particles in
-            # steady state (5.46x uniform) and the INITIAL dam column can sit
-            # entirely inside one slab, so a fraction-of-count cap saves <32%
-            # at real risk.  Balanced decompositions can pass an explicit
+            # fixed slabs: whole-set default.  Under the sloshing benchmark
+            # motion the peak slab holds most of the particles in steady
+            # state and the INITIAL dam column can sit entirely inside one
+            # slab, so a fraction-of-count cap saves little at real risk.  Balanced decompositions can pass an explicit
             # cap_local, and rebalance=True sizes it from the equal-count
             # partition instead.
             cap_local = max(256, -(-int(count + sspec.total_spawn) // 128) * 128)
@@ -208,12 +198,6 @@ class ShardSpec:
         migrate_cap = cap_local if rebalance else min(
             cap_local, max(128, ghost_cap)
         )
-        if use_pallas:
-            # the Pallas pipeline blocks the local array into 1024-row blocks
-            from pbf_sph_tpu.ops.pallas_pbf import BLK
-
-            total = cap_local + 2 * ghost_cap
-            cap_local += -(-total // BLK) * BLK - total
         spec = ShardSpec(
             n_dev=n_dev,
             cap_local=cap_local,
@@ -227,7 +211,6 @@ class ShardSpec:
             cell_capacity=cell_capacity,
             dtype=dtype,
             scene=sspec,
-            use_pallas=use_pallas,
             min_bound_x=float(np.asarray(config.min_bound, np.float32)[0]),
             surface=None,
             rebalance=rebalance,
@@ -246,10 +229,7 @@ class ShardSpec:
             assert nodes_x == int(nodes_x), (
                 "sharded MC requires slab_w * resolution to be integral"
             )
-            gspec = McSpec.from_extent(
-                grid.extent, res,
-                influence_static=float(config.surface.particle_influence),
-            )
+            gspec = McSpec.from_extent(grid.extent, res)
             local_sample = (int(nodes_x) + 1, gspec.sample[1], gspec.sample[2])
             local_vol = int(np.prod([s - 1 for s in local_sample]))
             surface = dataclasses.replace(
@@ -351,8 +331,7 @@ def build_sharded_step(spec: ShardSpec, mesh: Mesh):
     sharded along their last axis (capacity) over mesh axis AXIS.  Runs the
     FULL per-frame pipeline of the single-chip step — sources, drains, wells,
     advect, migration, ghost exchange, diffuse + constraint solve (via the
-    shared `neighbour_phases` pipeline, Pallas kernels when
-    spec.use_pallas), queries, finalise."""
+    shared `neighbour_phases` pipeline), queries, finalise."""
     dtype = jnp.dtype(spec.dtype)
     D = spec.n_dev
     CL = spec.cap_local
@@ -366,9 +345,8 @@ def build_sharded_step(spec: ShardSpec, mesh: Mesh):
     local_spec = StepSpec(
         capacity=CT, cell_capacity=K, grid=lgrid, h=spec.h, scale=spec.scale,
         iteration=spec.iteration, dtype=spec.dtype, scene=spec.scene,
-        surface=None, strip_capacity=spec.strip_capacity, mc_pallas=False,
+        surface=None,
     )
-    phases, _mc = make_phase_objects(local_spec, spec.use_pallas)
 
     def local_step(state: FluidState, dyn: Dict[str, Any], scn: Dict[str, Any],
                    bounds):
@@ -591,7 +569,7 @@ def build_sharded_step(spec: ShardSpec, mesh: Mesh):
         )
 
         # 5-6. diffuse + constraint solve — the single-chip phase pipeline
-        # (Pallas kernels when spec.use_pallas) with per-iteration halo hooks
+        # with per-iteration halo hooks
         def refresh(arr1d):
             to_l = arr1d[bpos_l]
             to_r = arr1d[bpos_r]
@@ -609,9 +587,9 @@ def build_sharded_step(spec: ShardSpec, mesh: Mesh):
         def refresh_pstar(ps):
             return jnp.stack([refresh(ps[a]) for a in range(3)])
 
-        colour, pstar, strip_ovf = neighbour_phases(
-            phases, lgrid, K, h, spec.iteration, dtype,
-            key, cell_table, cells_l, member,
+        colour, pstar = neighbour_phases(
+            lgrid, K, h, spec.iteration,
+            cell_table, cells_l, member,
             colour, pstar, mass, ptype, alive,
             dt, scale, min_bound, max_bound,
             refresh_lam=refresh, refresh_pstar=refresh_pstar,
@@ -736,7 +714,6 @@ def build_sharded_step(spec: ShardSpec, mesh: Mesh):
                 jnp.sum(bl), jnp.sum(br)
             ).astype(jnp.int32)[None],
             spawn_dropped=(jnp.asarray(total_spawn, jnp.int32) - spawned)[None],
-            strip_overflow=strip_ovf[None],
             query_overflow=q_overflow[None],
             query_ids=q_ids,
             query_counts=q_counts,
@@ -767,7 +744,7 @@ def build_sharded_step(spec: ShardSpec, mesh: Mesh):
         alive_count=P(AXIS), extent_ok=P(AXIS),
         migrate_dropped=P(AXIS), migrate_deferred=P(AXIS),
         ghost_dropped=P(AXIS), ghost_peak=P(AXIS),
-        spawn_dropped=P(AXIS), strip_overflow=P(AXIS),
+        spawn_dropped=P(AXIS),
         query_overflow=P(AXIS), query_ids=P(), query_counts=P(),
     )
     if spec.surface is not None:

@@ -1,11 +1,9 @@
 """2D tile domain decomposition: shard_map + two-phase halo exchange.
 
-The 1D x-slab engine (`parallel/sharded.py`) saturates at ~16 steps/s on the
-1M workload: the settled dam occupies ~27 of 88 x-columns, so at
-min-width-3 slabs only ~9 devices carry fluid (BENCHMARKS "Multi-chip
-projection").  This module decomposes over a 2D `Mesh((nx, ny), ("x","y"))`
-of (x, y) TILES instead — the projected path to 60 steps/s at 1M (8x8 tiles
-→ 85.9 steps/s at the measured pair rates).
+The 1D x-slab engine (`parallel/sharded.py`) runs out of useful slabs on the
+1M dam break: the settled dam occupies ~27 of 88 x-columns, so at
+min-width-3 slabs only ~9 devices carry fluid.  This module decomposes over a
+2D `Mesh((nx, ny), ("x","y"))` of (x, y) TILES instead.
 
 Design (tensor-product tiles, fixed equal-count bounds):
 
@@ -22,11 +20,11 @@ Design (tensor-product tiles, fixed equal-count bounds):
     without explicit diagonal sends;
   * the per-iteration lambda/pStar halo refresh applies the same two-phase
     order (x first, so y-ghost values sourced from x-ghost rows are fresh);
-  * the constraint pipeline is the SHARED single-chip `neighbour_phases`
-    (Pallas kernels under `use_pallas`), exactly as in the 1D engine.
+  * the constraint pipeline is the SHARED single-chip `neighbour_phases`,
+    exactly as in the 1D engine.
 
-Scope: the FULL pipeline — sources/drains/wells/queries, the shared Pallas
-constraint kernels, tile-local marching cubes (the 2D node partition: each
+Scope: the FULL pipeline — sources/drains/wells/queries, the shared
+constraint pipeline, tile-local marching cubes (the 2D node partition: each
 tile evaluates nodes [bx*res, bx1*res] x [by*res, by1*res] over all z and
 owns cubes with global x < bx1*res AND y < by1*res; boundary nodes gather
 from the ghost columns/rows the two-phase halo already installs, corner
@@ -53,7 +51,6 @@ from pbf_sph_tpu.models.jax_solver import (
     StepSpec,
     _apply_drains,
     _apply_sources,
-    make_phase_objects,
     neighbour_phases,
     scene_spec_of,
 )
@@ -113,8 +110,6 @@ class Shard2DSpec:
     cell_capacity: int
     dtype: str = "float32"
     scene: SceneSpec = SceneSpec()
-    use_pallas: bool = False
-    strip_capacity: int = 0
     min_bound: Tuple[float, float, float] = (0.0, 0.0, 0.0)
     # LOCAL marching-cubes spec (wx_max*res+1 x wy_max*res+1 node columns);
     # None = no surface.  Requires integer resolution: the per-tile node
@@ -166,7 +161,7 @@ class Shard2DSpec:
     def create(config, nx: int, ny: int, soa, h: float,
                cell_capacity: int = 48, dtype: str = "float32",
                cap_local: int = 0, scene: Scene = None,
-               use_pallas: bool = False, min_w: int = 3,
+               min_w: int = 3,
                rebalance: bool = False) -> "Shard2DSpec":
         grid = GridSpec.from_bounds(config.min_bound, config.max_bound,
                                     config.scale, h)
@@ -220,17 +215,12 @@ class Shard2DSpec:
         # drift) to a neighbour in one frame — size generously, like 1D
         migrate_cap = cap_local if rebalance else min(
             cap_local, max(128, max(ghost_x, ghost_y)))
-        if use_pallas:
-            from pbf_sph_tpu.ops.pallas_pbf import BLK
-
-            total = cap_local + 2 * ghost_x + 2 * ghost_y
-            cap_local += -(-total // BLK) * BLK - total
         spec = Shard2DSpec(
             nx=nx, ny=ny, cap_local=cap_local, ghost_x=ghost_x,
             ghost_y=ghost_y, migrate_cap=migrate_cap, xb=xb, yb=yb,
             grid_global=grid, h=h, scale=float(config.scale),
             iteration=int(config.iteration), cell_capacity=cell_capacity,
-            dtype=dtype, scene=sspec, use_pallas=use_pallas,
+            dtype=dtype, scene=sspec,
             min_bound=tuple(float(v) for v in np.asarray(config.min_bound, np.float32)),
             rebalance=rebalance, min_w=min_w,
         )
@@ -238,10 +228,7 @@ class Shard2DSpec:
             from pbf_sph_tpu.ops.mc import McSpec, default_cube_cap
 
             res = float(config.surface.resolution)
-            gspec = McSpec.from_extent(
-                grid.extent, res,
-                influence_static=float(config.surface.particle_influence),
-            )
+            gspec = McSpec.from_extent(grid.extent, res)
             # static local lattice sized for the WIDEST possible tile along
             # each axis (wx_max/wy_max are cut-derived in fixed mode, the
             # rebalance width caps otherwise); padding nodes feed only
@@ -285,9 +272,8 @@ def build_sharded2d_step(spec: Shard2DSpec, mesh: Mesh):
     local_spec = StepSpec(
         capacity=CT, cell_capacity=K, grid=lgrid, h=spec.h, scale=spec.scale,
         iteration=spec.iteration, dtype=spec.dtype, scene=spec.scene,
-        surface=None, strip_capacity=spec.strip_capacity, mc_pallas=False,
+        surface=None,
     )
-    phases, _mc = make_phase_objects(local_spec, spec.use_pallas)
 
     def local_step(state: FluidState, dyn: Dict[str, Any], scn: Dict[str, Any],
                    xb, yb):
@@ -557,9 +543,9 @@ def build_sharded2d_step(spec: Shard2DSpec, mesh: Mesh):
         def refresh_pstar(ps):
             return jnp.stack([refresh(ps[a]) for a in range(3)])
 
-        colour, pstar, strip_ovf = neighbour_phases(
-            phases, lgrid, K, h, spec.iteration, dtype,
-            key, cell_table, cells_l, member,
+        colour, pstar = neighbour_phases(
+            lgrid, K, h, spec.iteration,
+            cell_table, cells_l, member,
             colour, pstar, mass, ptype, alive,
             dt, scale, min_bound, max_bound,
             refresh_lam=refresh, refresh_pstar=refresh_pstar,
@@ -661,7 +647,6 @@ def build_sharded2d_step(spec: Shard2DSpec, mesh: Mesh):
             ghost_dropped=ghost_dropped[None],
             ghost_peak=ghost_peak[None],
             spawn_dropped=(jnp.asarray(total_spawn, jnp.int32) - spawned)[None],
-            strip_overflow=strip_ovf[None],
             query_overflow=q_overflow[None],
             query_ids=q_ids,
             query_counts=q_counts,
@@ -693,7 +678,7 @@ def build_sharded2d_step(spec: Shard2DSpec, mesh: Mesh):
         alive_count=P(both), extent_ok=P(both),
         migrate_dropped=P(both), migrate_deferred=P(both),
         ghost_dropped=P(both), ghost_peak=P(both),
-        spawn_dropped=P(both), strip_overflow=P(both),
+        spawn_dropped=P(both),
         query_overflow=P(both), query_ids=P(), query_counts=P(),
     )
     if spec.surface is not None:

@@ -2,7 +2,7 @@
 
 The reference ships a live Polyscope/ImGui viewer (reference
 `src/visualise.cpp:29-197`, mesh adapter `src/polyscope_extra.cpp:10-48`);
-on a TPU pod there is no GL surface, so the render-export pipeline
+a headless accelerator host has no GL surface, so the render-export pipeline
 (`visualise.py`) is completed here by an actual renderer: a deterministic
 NumPy z-buffer rasterizer (no GL, no display) that turns the per-frame
 triangle soup / point cloud into shaded PNGs.

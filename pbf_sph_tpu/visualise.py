@@ -1,8 +1,8 @@
 """Visualisation pipeline — headless frame export.
 
 The reference's `visualise` binary drives a Polyscope GUI with ImGui sliders
-(reference `src/visualise.cpp:29-197`).  On TPU pods there is no GL surface,
-so the TPU-native equivalent is a render-export loop: the same workload
+(reference `src/visualise.cpp:29-197`).  A headless accelerator host has no
+GL surface, so the equivalent here is a render-export loop: the same workload
 (20k particles, 3 solver iterations, reference `src/visualise.cpp:44-47`),
 with the surface mesh + point cloud exported per frame for offline rendering.
 The ImGui-adjustable parameters are exposed as CLI flags; they remain
@@ -71,7 +71,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--precompile", action="store_true",
                    help="AOT-compile every spec the scheduled --set mutations "
                         "will need, in a background thread, before/while "
-                        "frames run — the TPU counterpart of the reference "
+                        "frames run — the counterpart of the reference "
                         "GUI's sub-second slider response for static-shape "
                         "parameters (iteration, scale, mc_resolution), which "
                         "otherwise recompile mid-run (visualise.cpp:124-135)")
@@ -203,16 +203,12 @@ def main(argv=None) -> int:
 
     live_sets = parse_live_sets(args.sets)
     if args.precompile and hasattr(solver, "warm"):
-        import os
         import threading
 
-        import jax
+        from pbf_sph_tpu.utils.compile_cache import enable_compile_cache
 
         # persistent compile cache: warm compiles survive process restarts
-        jax.config.update(
-            "jax_compilation_cache_dir",
-            os.path.expanduser("~/.cache/jax_comp_cache"),
-        )
+        enable_compile_cache()
         plan = precompile_plan(config, live_sets, args.precompile_ladder)
         n0 = len(xs)
 

@@ -1,6 +1,6 @@
 """Cross-backend parity: the jitted XLA engine vs the NumPy oracle.
 
-This is the fidelity anchor from BASELINE.md: identical dam-break initial
+This is the fidelity anchor: identical dam-break initial
 conditions, per-frame state agreement within fp32 tolerance (accumulation
 order differs between backends, so exact bitwise equality is not expected).
 """
@@ -58,7 +58,7 @@ def test_six_iteration_parity():
 
 @pytest.mark.slow
 def test_density_parity():
-    """BASELINE.md fidelity criterion: per-particle densities of the two
+    """Fidelity criterion: per-particle densities of the two
     backends agree within fp32 tolerance on identical ICs."""
     import jax.numpy as jnp
 

@@ -131,6 +131,23 @@ def test_marching_cubes_smoke():
     assert np.isfinite(res.mesh.vs).all()
 
 
+def test_surface_of_matches_frame_mesh():
+    """surface_of(input, output) re-extracts exactly the frame's own mesh
+    from the frame's output particles, whatever order they come in."""
+    mc, cfg, particles = small_setup(count=2000)
+    cfg = cfg.replace(surface=mc)
+    solver = NumpySolver()
+    res, xs = solver.advance(cfg, Scene(), particles)
+    shuffled = xs.order_by_id()
+    mesh = solver.surface_of(cfg, particles, shuffled)
+    np.testing.assert_array_equal(mesh.vs, res.mesh.vs)
+    np.testing.assert_array_equal(mesh.cs, res.mesh.cs)
+    short = type(xs)(xs.pid[1:], xs.ptype[1:], xs.mass[1:],
+                     xs.position[1:], xs.velocity[1:], xs.colour[1:])
+    with pytest.raises(ValueError):
+        solver.surface_of(cfg, particles, short)
+
+
 def test_source_drain_query():
     mc, cfg, particles = small_setup(count=1000)
     scene = Scene(

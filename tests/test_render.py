@@ -61,7 +61,7 @@ def test_render_frame_empty_raises(tmp_path):
 
 def test_render_mesh_oversized_triangle_has_no_holes():
     """A close-up triangle whose screen bbox far exceeds max_block must be
-    tiled, not clipped (round-4 ADVICE: the old policy clipped to one 64px
+    tiled, not clipped (the old policy clipped to one 64px
     block and rendered holes)."""
     # one huge triangle facing the camera, framed to fill the viewport
     vs = np.array([[-10, -10, 0], [10, -10, 0], [0, 14, 0]], np.float64)

@@ -16,10 +16,10 @@ from pbf_sph_tpu.models.jax_solver import (
 from pbf_sph_tpu.parallel import sharded
 
 
-def run_sharded(cfg, particles, n_dev, frames, scene=None, use_pallas=False):
+def run_sharded(cfg, particles, n_dev, frames, scene=None):
     mesh = Mesh(np.array(jax.devices()[:n_dev]), (sharded.AXIS,))
     spec = sharded.ShardSpec.create(
-        cfg, n_dev, len(particles), cfg.h, scene=scene, use_pallas=use_pallas
+        cfg, n_dev, len(particles), cfg.h, scene=scene
     )
     state = sharded.distribute_particles(particles, spec)
     state = sharded.shard_state(state, mesh)
@@ -126,25 +126,6 @@ def test_sharded_scene_dynamics_matches_single():
 
 
 @pytest.mark.slow
-def test_sharded_pallas_matches_single():
-    """The shard_map'd local step running the Pallas phase pipeline (the
-    production strip-window kernels, interpret mode on the CPU mesh)
-    matches the single-chip XLA run — multi-chip capability on the
-    production kernels, not just the gather path (round-1 VERDICT weak
-    #2)."""
-    mc, cfg, particles = dam_break(800, solver_iter=2)
-    xs_m, stats = run_sharded(cfg, particles, 2, frames=1, use_pallas=True)
-    assert stats["strip_overflow"].max() == 0
-    xs_s = run_single(cfg, particles, frames=1)
-    assert len(xs_m) == len(xs_s)
-    a = xs_m.order_by_id()
-    b = xs_s.order_by_id()
-    np.testing.assert_array_equal(a.pid, b.pid)
-    np.testing.assert_allclose(a.position, b.position, atol=0.1, rtol=0)
-    np.testing.assert_allclose(a.colour, b.colour, atol=2e-3, rtol=0)
-
-
-@pytest.mark.slow
 @pytest.mark.nightly
 @pytest.mark.parametrize("compacted", [False, True])
 def test_sharded_mc_matches_single(compacted):
@@ -159,7 +140,7 @@ def test_sharded_mc_matches_single(compacted):
     mc, cfg, particles = simple_config_with_2_cubes(1500, 2, 500.0)
     # resolution 1.0 (vs the GUI default 2.0) cuts the lattice 8x: the
     # parity logic is resolution-independent and the CPU compile dominates
-    # this test's wall time (round-4 VERDICT weak #8)
+    # this test's wall time
     cfg = cfg.replace(surface=dataclasses.replace(mc, resolution=1.0))
 
     js = JaxSolver(h=cfg.h)
@@ -286,7 +267,7 @@ def test_migrate_deferral_recovers():
     the local grid for one frame), not dropped — force the deferral path
     with a tiny migrate_cap and a block of particles crossing a slab
     boundary at speed, then assert the backlog drains over subsequent
-    frames with zero drops and full conservation (round-4 VERDICT #5: the
+    frames with zero drops and full conservation (the
     deferral path previously had no test that exercised it)."""
     import dataclasses
 
@@ -337,7 +318,7 @@ def test_migrate_deferral_recovers():
 
 @pytest.mark.slow
 def test_rebalance_surface_matches_single():
-    """Rebalancing + marching cubes coexist (round-4 VERDICT #4): the MC
+    """Rebalancing + marching cubes coexist: the MC
     node partition follows the dynamic slab bounds (node/cell offsets are
     traced values derived from bounds, cube ownership is masked at
     bounds[d+1]*res), so the reference benchmark workload — sloshing bounds
@@ -404,11 +385,11 @@ def test_rebalance_surface_matches_single():
 @pytest.mark.slow
 @pytest.mark.nightly
 def test_rebalance_sloshing():
-    """SURVEY hard part #4 (round-2 VERDICT next-step #4): 130 frames (one
+    """SURVEY hard part #4: 130 frames (one
     full ~126-frame sin(frame/20) period, past the frame-20-25 slam) of the
     oscillating-bounds benchmark motion (`src/sph.hpp:147-158`) on an
     8-device mesh with dynamic slab-width rebalancing.  Fixed slabs measured
-    a 0.682 peak-slab fraction (5.46x uniform, tools/load_balance.py);
+    a 0.682 peak-slab fraction (5.46x uniform);
     equal-count boundaries must hold peak <= 2x uniform with a per-device
     capacity under half the whole set and ZERO drops.
 
@@ -445,14 +426,12 @@ def test_rebalance_sloshing():
 # ---------------------------------------------------------------------------
 
 
-def run_sharded2d(cfg, particles, nx, ny, frames, scene=None,
-                  use_pallas=False, cap_local=0):
+def run_sharded2d(cfg, particles, nx, ny, frames, scene=None, cap_local=0):
     from pbf_sph_tpu.parallel import sharded2d
 
     mesh = sharded2d.make_mesh2d(nx, ny)
     spec = sharded2d.Shard2DSpec.create(
-        cfg, nx, ny, particles, cfg.h, scene=scene, use_pallas=use_pallas,
-        cap_local=cap_local,
+        cfg, nx, ny, particles, cfg.h, scene=scene, cap_local=cap_local,
     )
     state = sharded2d.shard_state_2d(
         sharded2d.distribute_particles_2d(particles, spec), mesh)
@@ -545,23 +524,6 @@ def test_sharded2d_conserves_under_motion():
             assert int(np.asarray(stats["alive_count"]).sum()) == len(particles)
     xs = state.to_soa()
     assert sorted(xs.pid.tolist()) == sorted(particles.pid.tolist())
-
-
-@pytest.mark.slow
-def test_sharded2d_pallas_matches_single():
-    """The production Pallas phase pipeline inside the 2D tile shard_map
-    (interpret mode on the CPU mesh) matches the single-chip run."""
-    mc, cfg, particles = dam_break(800, solver_iter=2)
-    xs_m, stats = run_sharded2d(cfg, particles, 2, 2, frames=1,
-                                use_pallas=True)
-    assert stats["strip_overflow"].max() == 0
-    xs_s = run_single(cfg, particles, frames=1)
-    assert len(xs_m) == len(xs_s)
-    a = xs_m.order_by_id()
-    b = xs_s.order_by_id()
-    np.testing.assert_array_equal(a.pid, b.pid)
-    np.testing.assert_allclose(a.position, b.position, atol=0.1, rtol=0)
-    np.testing.assert_allclose(a.colour, b.colour, atol=2e-3, rtol=0)
 
 
 @pytest.mark.slow
